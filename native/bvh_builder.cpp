@@ -1,7 +1,7 @@
 // Native BVH builder — host-side median-split BVH over primitives.
 //
 // C++ implementation of the same topology rules as
-// low_precision_raytracer_tpu/models/bvh.py::build_bvh (which mirrors the
+// low_precision_raytracer/models/bvh.py::build_bvh (which mirrors the
 // reference's rt/trace/object_bvh.hpp builder):
 //   - node AABB = union of member primitive AABBs (fp32)
 //   - split on the widest axis (strict > comparisons, x wins ties)

@@ -211,7 +211,7 @@ def cube_glb(path: str, with_texture=False, with_light=True, with_camera=True,
              with_animation=False) -> None:
     """A small but feature-covering .glb: cube mesh + material (+texture),
     point light, spot light (should map to point), camera, TRS animation."""
-    from low_precision_raytracer_tpu.models.procedural import cube_mesh
+    from low_precision_raytracer.models.procedural import cube_mesh
 
     b = GLBBuilder()
     mesh = cube_mesh(1.0)

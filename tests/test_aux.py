@@ -7,15 +7,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from low_precision_raytracer_tpu.config import RenderConfig, get_precision
-from low_precision_raytracer_tpu.gui.controller import HoldRotateController, MoveController
-from low_precision_raytracer_tpu.models.hierarchy import build_flat_scene
-from low_precision_raytracer_tpu.models.procedural import cornell_box_scene
-from low_precision_raytracer_tpu.models.scene import frame_input_from_flat
-from low_precision_raytracer_tpu.ops.camera import primary_ray_grid
-from low_precision_raytracer_tpu.ops.diagnostics import fallback_rate
-from low_precision_raytracer_tpu.render.checkpoint import load_checkpoint, save_checkpoint
-from low_precision_raytracer_tpu.render.framestate import init_frame_state
+from low_precision_raytracer.config import RenderConfig, get_precision
+from low_precision_raytracer.gui.controller import HoldRotateController, MoveController
+from low_precision_raytracer.models.hierarchy import build_flat_scene
+from low_precision_raytracer.models.procedural import cornell_box_scene
+from low_precision_raytracer.models.scene import frame_input_from_flat
+from low_precision_raytracer.ops.camera import primary_ray_grid
+from low_precision_raytracer.ops.diagnostics import fallback_rate
+from low_precision_raytracer.render.checkpoint import load_checkpoint, save_checkpoint
+from low_precision_raytracer.render.framestate import init_frame_state
 
 
 def test_move_controller_accelerates_and_clamps():
@@ -68,7 +68,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_checkpoint_preserves_key_impl(tmp_path):
-    """The production TPU key is rbg (4-word data); the checkpoint must
+    """A typed rbg key has 4-word data; the checkpoint must
     round-trip its PRNG IMPLEMENTATION, not just its data — wrapping rbg
     data with the default threefry impl yields a wrong-shaped batched key
     that jax.random.split rejects."""
@@ -119,7 +119,7 @@ def test_fallback_rate_chunking_is_exact():
 def test_pick_pixel_skips_non_pixel_arrays():
     """pick_pixel must only index (H, W, ...) pixel grids — a (4, 4)
     transform in the aux dict must not be reported as pixel data."""
-    from low_precision_raytracer_tpu.utils.debug import pick_pixel
+    from low_precision_raytracer.utils.debug import pick_pixel
 
     H, W = 6, 8
     aux = {
@@ -131,16 +131,6 @@ def test_pick_pixel_skips_non_pixel_arrays():
     rec = pick_pixel(aux, x=2, y=1, height=H, width=W)
     assert set(rec) == {"albedo", "depth"}
     np.testing.assert_allclose(rec["depth"], 1 * W + 2)
-
-
-def test_sync_handles_typed_prng_keys():
-    """utils.timing.sync must not crash on extended-dtype leaves (typed
-    rbg PRNG keys are part of renderer state on TPU)."""
-    from low_precision_raytracer_tpu.utils.timing import sync
-
-    tree = {"k": jax.random.key(0), "x": jnp.ones((3,))}
-    out = sync(tree)
-    assert out is tree
 
 
 # ---- Radiance RGBE (.hdr) decoder --------------------------------------
@@ -192,7 +182,7 @@ def _write_hdr_rle(path, rgb):
 
 
 def test_radiance_hdr_flat_roundtrip(tmp_path):
-    from low_precision_raytracer_tpu.utils.image import load_radiance_hdr
+    from low_precision_raytracer.utils.image import load_radiance_hdr
 
     rng = np.random.default_rng(11)
     rgb = (rng.random((4, 9, 3)) * 100.0).astype(np.float32)
@@ -210,7 +200,7 @@ def test_radiance_hdr_flat_roundtrip(tmp_path):
 
 
 def test_radiance_hdr_rle_roundtrip(tmp_path):
-    from low_precision_raytracer_tpu.utils.image import load_radiance_hdr
+    from low_precision_raytracer.utils.image import load_radiance_hdr
 
     rng = np.random.default_rng(12)
     w = 33  # >= 8 so the RLE format is legal
@@ -224,7 +214,7 @@ def test_radiance_hdr_rle_roundtrip(tmp_path):
 
 
 def test_radiance_hdr_old_rle_repeat(tmp_path):
-    from low_precision_raytracer_tpu.utils.image import load_radiance_hdr
+    from low_precision_raytracer.utils.image import load_radiance_hdr
 
     # old-style run: pixel [1,1,1,n] repeats the previous pixel n times
     w = 6  # < 8 -> forced flat/old format
@@ -242,7 +232,7 @@ def test_radiance_hdr_old_rle_row_boundary(tmp_path):
     """An old-style run at x == 0 repeats the previous ROW's last pixel
     (Radiance's oldreadcolrs copies scan[-1] of the contiguous buffer); a
     run before any decoded pixel, and a run overrunning its row, raise."""
-    from low_precision_raytracer_tpu.utils.image import load_radiance_hdr
+    from low_precision_raytracer.utils.image import load_radiance_hdr
 
     w = 5  # < 8 -> forced flat/old format
     hdr = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
@@ -272,7 +262,7 @@ def test_radiance_hdr_old_rle_row_boundary(tmp_path):
 
 
 def test_load_hdr_equirect_dispatch(tmp_path):
-    from low_precision_raytracer_tpu.utils.image import load_hdr_equirect
+    from low_precision_raytracer.utils.image import load_hdr_equirect
 
     rgb = np.full((2, 8, 3), 2.5, np.float32)
     p = tmp_path / "sky.hdr"
@@ -285,7 +275,7 @@ def test_radiance_hdr_corrupt_files_raise_valueerror(tmp_path):
     import pytest
     """Corrupt/truncated .hdr files must raise ValueError naming the file,
     never leak decoder internals (IndexError/broadcast errors)."""
-    from low_precision_raytracer_tpu.utils.image import load_radiance_hdr
+    from low_precision_raytracer.utils.image import load_radiance_hdr
 
     hdr = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
     cases = [

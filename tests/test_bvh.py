@@ -1,13 +1,13 @@
 import numpy as np
 import pytest
 
-from low_precision_raytracer_tpu.models.bvh import (
+from low_precision_raytracer.models.bvh import (
     build_blas,
     build_tlas,
     pack_blas,
 )
-from low_precision_raytracer_tpu.models.procedural import cube_mesh, icosphere_mesh
-from low_precision_raytracer_tpu.utils.dtypes import cast_round_down, cast_round_up
+from low_precision_raytracer.models.procedural import cube_mesh, icosphere_mesh
+from low_precision_raytracer.utils.dtypes import cast_round_down, cast_round_up
 
 
 def check_bvh_invariants(bvh, n_prims):

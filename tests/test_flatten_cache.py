@@ -10,20 +10,19 @@ recompute when anything moves.
 
 import numpy as np
 
-from low_precision_raytracer_tpu.config import RenderConfig
-from low_precision_raytracer_tpu.models.hierarchy import MeshObject
-from low_precision_raytracer_tpu.models.procedural import (
+from low_precision_raytracer.config import RenderConfig
+from low_precision_raytracer.models.hierarchy import MeshObject
+from low_precision_raytracer.models.procedural import (
     animated_cornell_scene,
     cornell_box_scene,
 )
-from low_precision_raytracer_tpu.models.scene import flatten_frame
+from low_precision_raytracer.models.scene import flatten_frame
 
 CFG = dict(max_direct_lights=4, width=64, height=64)
 
 DENSE_FIELDS = (
     "dense_n", "dense_n_f32", "dense_e", "dense_tri",
-    "dense_obj", "dense_center", "dense_chunk_lo", "dense_chunk_hi",
-    "dense_leaf_lo", "dense_leaf_hi",
+    "dense_obj", "dense_center",
 )
 
 
@@ -100,10 +99,10 @@ def test_geometry_edit_invalidates_m_cache():
     while an in-place edit raises instead of serving stale M matrices."""
     import pytest
 
-    from low_precision_raytracer_tpu.models.scene import _host_m_cache
+    from low_precision_raytracer.models.scene import _host_m_cache
 
     host = cornell_box_scene()
-    m0, v20, _ = _host_m_cache(host)
+    m0, v20 = _host_m_cache(host)
     # in-place mutation is rejected (arrays frozen on first cache)
     with pytest.raises(ValueError):
         host.meshes[0].positions[0, 0] = 99.0
@@ -112,6 +111,6 @@ def test_geometry_edit_invalidates_m_cache():
     moved = mesh.positions.copy()
     moved[:, 0] += 0.25
     mesh.positions = moved
-    m1, v21, _ = _host_m_cache(host)
+    m1, v21 = _host_m_cache(host)
     assert not np.array_equal(m0, m1)
     assert not np.array_equal(v20, v21)

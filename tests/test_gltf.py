@@ -3,8 +3,8 @@ import pytest
 
 from gltf_writer import GLBBuilder, cube_glb
 
-from low_precision_raytracer_tpu.models.gltf import GLTFError, load_gltf
-from low_precision_raytracer_tpu.models.hierarchy import (
+from low_precision_raytracer.models.gltf import GLTFError, load_gltf
+from low_precision_raytracer.models.hierarchy import (
     LIGHT_POINT,
     CameraObject,
     LightObject,
@@ -139,7 +139,7 @@ def test_matrix_node_decompose(tmp_path):
     pos = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     nrm = np.tile([0, 0, 1], (3, 1)).astype(np.float32)
     mid = b.add_mesh(pos, [0, 1, 2], normals=nrm)
-    from low_precision_raytracer_tpu.math.hostmath import trs_matrix
+    from low_precision_raytracer.math.hostmath import trs_matrix
 
     q = np.array([0, np.sin(np.pi / 8), 0, np.cos(np.pi / 8)], np.float32)
     m = trs_matrix([1, 2, 3], q, [2, 2, 2])
@@ -188,8 +188,8 @@ def test_render_from_glb(tmp_path):
     path = str(tmp_path / "cube.glb")
     cube_glb(path, with_texture=True)
     scene = load_gltf(path)
-    from low_precision_raytracer_tpu.config import RenderConfig
-    from low_precision_raytracer_tpu.render.renderer import Renderer
+    from low_precision_raytracer.config import RenderConfig
+    from low_precision_raytracer.render.renderer import Renderer
 
     cfg = RenderConfig(width=32, height=32, precision="fp32", gi_on=False, taa_on=False)
     img, aux = Renderer(scene, cfg).render()
@@ -226,8 +226,8 @@ def test_sparse_accessor_renders():
     """End-to-end: the sparse-displaced geometry actually traces."""
     import os
 
-    from low_precision_raytracer_tpu.config import DemoSettings, RenderConfig
-    from low_precision_raytracer_tpu.render.renderer import Renderer
+    from low_precision_raytracer.config import DemoSettings, RenderConfig
+    from low_precision_raytracer.render.renderer import Renderer
 
     path = os.path.join(os.path.dirname(__file__), "assets", "sparse_quad.gltf")
     scene = load_gltf(path)
@@ -289,12 +289,12 @@ def test_khronos_box_renders_red():
     """End-to-end render of the foreign-layout asset: rig the CLI's default
     camera, render, and check the cube shows up red-dominant at the image
     center (material baseColorFactor [0.8, 0, 0])."""
-    from low_precision_raytracer_tpu.config import DemoSettings, RenderConfig
-    from low_precision_raytracer_tpu.models.hierarchy import (
+    from low_precision_raytracer.config import DemoSettings, RenderConfig
+    from low_precision_raytracer.models.hierarchy import (
         CameraObject,
         LightObject,
     )
-    from low_precision_raytracer_tpu.render.renderer import Renderer
+    from low_precision_raytracer.render.renderer import Renderer
 
     scene = load_gltf(_asset("Box.gltf"))
     cam = CameraObject(name="cam", fov_y=np.pi / 3)
@@ -320,7 +320,7 @@ def test_khronos_boxtextured_layout():
     """`BoxTextured` sample structure: TEXCOORD_0 from its own strided
     bufferView, file-uri PNG image, samplers table, material color carried
     by baseColorTexture (`rt/rtrt/loader.cu:444-541`)."""
-    from low_precision_raytracer_tpu.models.materials import NO_TEX
+    from low_precision_raytracer.models.materials import NO_TEX
 
     scene = load_gltf(_asset("BoxTextured.gltf"))
     mesh = scene.meshes[0]
@@ -346,12 +346,12 @@ def test_khronos_boxtextured_layout():
 def test_khronos_boxtextured_renders_checker():
     """End-to-end: the rendered +Z face must show the checkerboard — both
     red cells (G << R) and white cells (G ~ R) present in the same face."""
-    from low_precision_raytracer_tpu.config import DemoSettings, RenderConfig
-    from low_precision_raytracer_tpu.models.hierarchy import (
+    from low_precision_raytracer.config import DemoSettings, RenderConfig
+    from low_precision_raytracer.models.hierarchy import (
         CameraObject,
         LightObject,
     )
-    from low_precision_raytracer_tpu.render.renderer import Renderer
+    from low_precision_raytracer.render.renderer import Renderer
 
     scene = load_gltf(_asset("BoxTextured.gltf"))
     cam = CameraObject(name="cam", fov_y=np.pi / 3)

@@ -8,15 +8,15 @@ import os
 
 import numpy as np
 
-from low_precision_raytracer_tpu.config import DemoSettings, RenderConfig
-from low_precision_raytracer_tpu.models.procedural import (
+from low_precision_raytracer.config import DemoSettings, RenderConfig
+from low_precision_raytracer.models.procedural import (
     animated_cornell_scene,
     cornell_box_scene,
     single_mesh_scene,
     sponza_like_scene,
 )
-from low_precision_raytracer_tpu.render.renderer import Renderer
-from low_precision_raytracer_tpu.utils.image import psnr
+from low_precision_raytracer.render.renderer import Renderer
+from low_precision_raytracer.utils.image import psnr
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 

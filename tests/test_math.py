@@ -1,6 +1,6 @@
 import numpy as np
 
-from low_precision_raytracer_tpu.math.hostmath import (
+from low_precision_raytracer.math.hostmath import (
     cross_product_difference,
     difference_of_products,
     inverse_3x3_dop,

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from low_precision_raytracer_tpu.models.bvh import build_bvh, triangle_aabbs
-from low_precision_raytracer_tpu.models.native import (
+from low_precision_raytracer.models.bvh import build_bvh, triangle_aabbs
+from low_precision_raytracer.models.native import (
     get_library,
     native_build_bvh,
     native_triangle_aabbs,
 )
-from low_precision_raytracer_tpu.models.procedural import icosphere_mesh
+from low_precision_raytracer.models.procedural import icosphere_mesh
 
 needs_native = pytest.mark.skipif(get_library() is None, reason="no native lib")
 

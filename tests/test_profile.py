@@ -9,11 +9,11 @@ in utils/timing.py."""
 
 from __future__ import annotations
 
-from low_precision_raytracer_tpu.config import RenderConfig
-from low_precision_raytracer_tpu.models.procedural import cornell_box_scene
-from low_precision_raytracer_tpu.render.profile import profile_frame
-from low_precision_raytracer_tpu.render.renderer import Renderer
-from low_precision_raytracer_tpu.utils.timing import STAGE_NAMES
+from low_precision_raytracer.config import RenderConfig
+from low_precision_raytracer.models.procedural import cornell_box_scene
+from low_precision_raytracer.render.profile import profile_frame
+from low_precision_raytracer.render.renderer import Renderer
+from low_precision_raytracer.utils.timing import STAGE_NAMES
 
 
 def test_profile_frame_stage_names_and_values():

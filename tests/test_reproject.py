@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from low_precision_raytracer_tpu.ops.reproject import (
+from low_precision_raytracer.ops.reproject import (
     RES_K,
     _gather2x2_take,
     gather2x2,
@@ -46,7 +46,7 @@ def test_shifted_matches_take_negative_motion_border():
     pad must WRAP (the true row lives at the circularly-wrapped index) —
     a zero pad silently darkened the far border row/column during pans.
     Calls the fast path DIRECTLY so dispatch fallback can't mask the bug."""
-    from low_precision_raytracer_tpu.ops.reproject import _gather2x2_shifted
+    from low_precision_raytracer.ops.reproject import _gather2x2_shifted
 
     for my, mx in ((-2, 0), (0, -2), (-2, -2), (1, 1), (3, -2)):
         arr, by, bx, _ = _mk(seed=7, my=my, mx=mx)
@@ -88,18 +88,18 @@ def test_static_camera_residuals_stay_in_window():
     within RES_K of its own pixel (fp32-reconstructed positions — the
     bf16 G-buffer position wobbles +-10 px and would force the 60 ms
     take path every frame)."""
-    import low_precision_raytracer_tpu.ops.reproject as rp
-    from low_precision_raytracer_tpu.config import RenderConfig, get_precision
-    from low_precision_raytracer_tpu.models import procedural
-    from low_precision_raytracer_tpu.models.scene import (
+    import low_precision_raytracer.ops.reproject as rp
+    from low_precision_raytracer.config import RenderConfig, get_precision
+    from low_precision_raytracer.models import procedural
+    from low_precision_raytracer.models.scene import (
         build_scene_arrays,
         flatten_frame,
     )
-    from low_precision_raytracer_tpu.ops.camera import primary_ray_grid
-    from low_precision_raytracer_tpu.ops.gbuffer import fill_gbuffer
-    from low_precision_raytracer_tpu.ops.trace import resolve_cfg
-    from low_precision_raytracer_tpu.render.framestate import init_frame_state
-    from low_precision_raytracer_tpu.render.renderer import render_frame
+    from low_precision_raytracer.ops.camera import primary_ray_grid
+    from low_precision_raytracer.ops.gbuffer import fill_gbuffer
+    from low_precision_raytracer.ops.trace import resolve_cfg
+    from low_precision_raytracer.render.framestate import init_frame_state
+    from low_precision_raytracer.render.renderer import render_frame
 
     H = W = 48
     cfg = RenderConfig(width=W, height=H, precision="bf16")
@@ -151,7 +151,7 @@ def test_static_camera_residuals_stay_in_window():
 def test_fetch_weighted_matches_raw_paths():
     """fetch_weighted (coefficient-plane fast path AND take fallback) must
     equal sum_k w_k * tap_k of the raw gather wherever taps matter."""
-    from low_precision_raytracer_tpu.ops.reproject import (
+    from low_precision_raytracer.ops.reproject import (
         _residuals,
         fetch_weighted,
     )
@@ -181,62 +181,6 @@ def test_fetch_weighted_matches_raw_paths():
     )
 
 
-def test_fetch_weighted_packed_matches_unpacked():
-    """fetch_weighted_packed (the Pallas coefficient-plane ctr-layout fetch
-    of the single-chip fused-SVGF path) must produce exactly the finished
-    gated fetch of the unpacked path, in the padded channel-major layout,
-    on BOTH the fast (Pallas kernel) and slow (flat take) branches."""
-    from low_precision_raytracer_tpu.ops.reproject import (
-        _residuals,
-        fetch_weighted,
-        fetch_weighted_packed,
-    )
-    from low_precision_raytracer_tpu.ops.svgf_pallas import PAD, _padded_dims
-
-    arr, by, bx, care = _mk(H=40, W=52, C=10)
-    H, W, C = arr.shape
-    wgt_raw = jax.random.uniform(jax.random.PRNGKey(9), (H, W, 4), jnp.float32)
-    wgt = jnp.where(care[..., None], wgt_raw, 0.0)
-    tot = jnp.sum(wgt, axis=-1)
-    wgt = jnp.where(care[..., None], wgt / jnp.where(tot > 0, tot, 1)[..., None], 0)
-    count = jnp.where(care, 7, 0).astype(jnp.int32)
-
-    res = _residuals(by, bx, care)
-    my, mx, res_y, res_x, _ = res
-    in_win = (jnp.abs(res_y) <= RES_K) & (jnp.abs(res_x) <= RES_K)
-
-    def reference(residuals):
-        num = fetch_weighted(arr, by, bx, wgt, residuals)
-        den = jnp.sum(wgt, axis=-1)
-        out = num / jnp.where(den > 0, den, 1.0)[..., None]
-        return jnp.where((count > 0)[..., None], out, 0.0)
-
-    payload_cm = jnp.moveaxis(arr, -1, 0)
-    tiles, hp, wp = _padded_dims(H, W)
-
-    for forced in (True, False):
-        res_f = (my, mx, res_y, res_x, jnp.asarray(forced))
-        ref = reference(res_f)
-        out = fetch_weighted_packed(
-            payload_cm, by, bx, wgt, count, res_f, interpret=True
-        )
-        assert out.shape == (C + 1, hp, wp)
-        img = np.asarray(out[:C, PAD : PAD + H, PAD : PAD + W])
-        cnt = np.asarray(out[C, PAD : PAD + H, PAD : PAD + W])
-        # on the fast branch, border-clipped anchors can leave the residual
-        # window; the dispatch only takes it when all_ok, so compare there
-        m = np.asarray(care & in_win)[None] if forced else 1.0
-        np.testing.assert_allclose(
-            img * m, np.moveaxis(np.asarray(ref), -1, 0) * m,
-            rtol=1e-5, atol=1e-5,
-        )
-        np.testing.assert_array_equal(cnt, np.asarray(count, np.float32))
-        # padding region stays zero
-        pad_mask = np.ones((hp, wp), bool)
-        pad_mask[PAD : PAD + H, PAD : PAD + W] = False
-        assert np.abs(np.asarray(out)[:, pad_mask]).max() == 0.0
-
-
 def test_taa_identity_at_weight_one():
     """TAA at mix weight 1 is bitwise the identity — the property that lets
     render_frame statically elide the whole TAA map half at the reference's
@@ -244,7 +188,7 @@ def test_taa_identity_at_weight_one():
     Must hold even for non-finite history (value_or launders it FIRST,
     `rt/rtrt/cuda.hpp:2436-2438`; without that, inf * 0 would leak NaN)."""
     import jax
-    from low_precision_raytracer_tpu.ops.taa import temporal_anti_aliasing
+    from low_precision_raytracer.ops.taa import temporal_anti_aliasing
 
     H, W = 6, 8
     key = jax.random.PRNGKey(3)
@@ -269,9 +213,9 @@ def test_render_taa_weight_one_elision_is_exact():
     two spellings of the same skip.  `taa_force_full=True` runs the real
     temporal_anti_aliasing stage (`rt/rtrt/cuda.hpp:2418-2439` semantics) at
     w=1, where value_or launders history before `hist * 0`."""
-    from low_precision_raytracer_tpu.config import RenderConfig
-    from low_precision_raytracer_tpu.models.procedural import cornell_box_scene
-    from low_precision_raytracer_tpu.render.renderer import Renderer
+    from low_precision_raytracer.config import RenderConfig
+    from low_precision_raytracer.models.procedural import cornell_box_scene
+    from low_precision_raytracer.render.renderer import Renderer
 
     imgs = {}
     for force_full in (True, False):

@@ -1,17 +1,17 @@
-"""Multi-chip pixel-tile sharding (SURVEY.md §5.8): the sharded render must
+"""Multi-device pixel-tile sharding (SURVEY.md §5.8): the sharded render must
 match the single-device render (pixel tiles are embarrassingly parallel)."""
 
 import jax
 import numpy as np
 import pytest
 
-from low_precision_raytracer_tpu.config import RenderConfig
-from low_precision_raytracer_tpu.models.procedural import cornell_box_scene
-from low_precision_raytracer_tpu.models.scene import build_scene_arrays, flatten_frame
-from low_precision_raytracer_tpu.ops.trace import resolve_cfg
-from low_precision_raytracer_tpu.parallel.tiling import make_pixel_mesh, render_frame_sharded
-from low_precision_raytracer_tpu.render.framestate import init_frame_state
-from low_precision_raytracer_tpu.render.renderer import render_frame
+from low_precision_raytracer.config import RenderConfig
+from low_precision_raytracer.models.procedural import cornell_box_scene
+from low_precision_raytracer.models.scene import build_scene_arrays, flatten_frame
+from low_precision_raytracer.ops.trace import resolve_cfg
+from low_precision_raytracer.parallel.tiling import make_pixel_mesh, render_frame_sharded
+from low_precision_raytracer.render.framestate import init_frame_state
+from low_precision_raytracer.render.renderer import render_frame
 
 needs_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device virtual mesh"
@@ -61,23 +61,6 @@ def test_single_device_mesh_matches_no_mesh():
 
 
 @needs_devices
-@pytest.mark.parametrize("impl", ["dense_pallas", "pallas"])
-def test_sharded_pallas_kernels_per_shard(impl):
-    """The production Pallas backends (all-pairs + packet BVH traversal)
-    under the sharded step: ops/trace.py routes them through shard_map, so
-    each device runs the kernel on its own ray partition (interpret mode on
-    the virtual CPU mesh).  Must match the single-device render."""
-    cfg, scene, frame, state, key = _setup(h=128, w=128)
-    cfg = cfg.replace(traversal_impl=impl)
-    img1, _, _ = render_frame(scene, frame, state, cfg, key)
-    mesh = make_pixel_mesh(8)
-    img8, _, _ = render_frame_sharded(mesh, scene, frame, state, cfg, key)
-    np.testing.assert_allclose(
-        np.asarray(img1), np.asarray(img8), rtol=2e-4, atol=2e-4
-    )
-
-
-@needs_devices
 def test_sharded_two_frames_temporal():
     """Two sharded frames in sequence: temporal state stays sharded and
     consistent with the single-device run."""
@@ -90,164 +73,4 @@ def test_sharded_two_frames_temporal():
     imgB2, _, stB2 = render_frame_sharded(mesh, scene, frame, stB, cfg, k2)
     np.testing.assert_allclose(
         np.asarray(imgA2), np.asarray(imgB2), rtol=5e-4, atol=5e-4
-    )
-
-
-@needs_devices
-def test_sharded_pallas_svgf_chain():
-    """VERDICT round-3 weak item 6: the fused Pallas wavelet chain must run
-    under a mesh (shard_map + bounded halo ppermutes) instead of silently
-    downgrading to the XLA stencils.  With wavelet_impl='pallas' the
-    sharded render routes through wavelet_chain_pallas_pair_sharded
-    (interpret mode on the CPU mesh) and must match single-device."""
-    from low_precision_raytracer_tpu.config import SVGFConfig
-
-    # H=64: 8 rows/shard < PAD would trip the assert; use height 256
-    cfg = RenderConfig(width=64, height=256, precision="fp32", gi_on=True,
-                       svgf=SVGFConfig(wavelet_impl="pallas"))
-    host = cornell_box_scene()
-    scene = build_scene_arrays(host, cfg.prec, leaf_size=cfg.bvh_leaf_size)
-    frame = flatten_frame(host, cfg.prec, max_direct_lights=4, width=64,
-                          height=256)
-    cfg = resolve_cfg(scene, frame, cfg)
-    state = init_frame_state(cfg, len(frame.obj_layout))
-    key = jax.random.PRNGKey(3)
-    img1, _, st1 = render_frame(scene, frame, state, cfg, key)
-    mesh = make_pixel_mesh(8)
-    img8, _, st8 = render_frame_sharded(mesh, scene, frame, state, cfg, key)
-    np.testing.assert_allclose(
-        np.asarray(img1), np.asarray(img8), rtol=2e-4, atol=2e-4
-    )
-    # SVGF color history (the stride-1 output) must survive sharding too
-    np.testing.assert_allclose(
-        np.asarray(st1.svgf_colored.color_history, np.float32),
-        np.asarray(st8.svgf_colored.color_history, np.float32),
-        rtol=2e-3, atol=2e-3,
-    )
-
-
-def test_sharded_wavelet_chain_bitwise():
-    """The sharded fused wavelet chain alone vs the single-chip chain:
-    image rows must be BITWISE equal (interior halos are real neighbor
-    rows; edge halos are the same zeros the kernel's masks exclude)."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from low_precision_raytracer_tpu.config import SVGFConfig
-    from low_precision_raytracer_tpu.ops.svgf_pallas import (
-        wavelet_chain_pallas_pair,
-        wavelet_chain_pallas_pair_sharded,
-    )
-
-    if jax.device_count() < 4:
-        pytest.skip("needs the virtual CPU mesh")
-    H, W = 160, 40
-    cfg = SVGFConfig()
-    k = jax.random.PRNGKey(0)
-    ks = jax.random.split(k, 6)
-    color2 = jax.random.uniform(ks[0], (2, H, W, 3))
-    var2 = jax.random.uniform(ks[1], (2, H, W))
-    depth = jax.random.uniform(ks[2], (H, W)) * 5
-    grad = jax.random.normal(ks[3], (H, W, 2))
-    normal = jax.random.normal(ks[4], (H, W, 3))
-    normal = normal / np.linalg.norm(np.asarray(normal), axis=-1, keepdims=True)
-    illum2 = jax.random.uniform(ks[5], (2, H, W))
-    # a few NaNs to exercise the fallback semantics across the halo
-    depth = depth.at[3, 5].set(np.nan)
-    color2 = color2.at[0, 41, 7, 1].set(np.nan)  # next to a shard boundary
-    out1, hist1 = wavelet_chain_pallas_pair(
-        color2, var2, depth, grad, normal, illum2, cfg.strides, cfg,
-        interpret=True,
-    )
-    mesh = make_pixel_mesh(4)  # 40 rows/shard (>= PAD=32)
-    outS, histS = wavelet_chain_pallas_pair_sharded(
-        color2, var2, depth, grad, normal, illum2, cfg.strides, cfg, mesh,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(out1), np.asarray(outS))
-    np.testing.assert_array_equal(np.asarray(hist1), np.asarray(histS))
-
-
-def test_sharded_fused_svgf_full_bitwise():
-    """VERDICT r4 item 6: the FUSED temporal-accumulation kernel must run
-    per shard too (not just the wavelet chain).  svgf_denoise_pair with a
-    mesh routes the whole fused pipeline through
-    svgf_pallas_pair_full_sharded; given identical prefetched history
-    fetches, sharded image rows must be BITWISE equal to the single-chip
-    fused path (same kernels, interior halos carry real neighbor rows)."""
-    import jax.numpy as jnp
-
-    from low_precision_raytracer_tpu.config import SVGFConfig
-    from low_precision_raytracer_tpu.ops.svgf import SVGFState, svgf_denoise_pair
-
-    if jax.device_count() < 4:
-        pytest.skip("needs the virtual CPU mesh")
-    H, W = 160, 40
-    cfg = SVGFConfig()
-    k = jax.random.PRNGKey(7)
-    ks = jax.random.split(k, 10)
-    color2 = jax.random.uniform(ks[0], (2, H, W, 3))
-    depth = jax.random.uniform(ks[1], (H, W)) * 5
-    grad = jax.random.normal(ks[2], (H, W, 2)) * 0.1
-    normal = jax.random.normal(ks[3], (H, W, 3))
-    normal = normal / np.linalg.norm(np.asarray(normal), axis=-1, keepdims=True)
-    state2 = SVGFState(
-        miu1=jax.random.uniform(ks[4], (2, H, W)),
-        miu2=jax.random.uniform(ks[5], (2, H, W)) + 1.0,
-        color_history=jax.random.uniform(ks[6], (2, H, W, 3)),
-    )
-    svgf_map = dict(
-        frame_count=(jax.random.uniform(ks[7], (H, W)) > 0.2).astype(jnp.int32) * 5,
-        weights=jax.random.uniform(ks[8], (H, W, 4), jnp.float32),
-        base_y=jnp.clip(jax.random.randint(ks[9], (H, W), 0, H), 0, H),
-        base_x=jnp.clip(jax.random.randint(ks[0], (H, W), 0, W), 0, W),
-    )
-    # identical finished prefetches feed both paths (the fetch itself is
-    # path-specific in production: packed Pallas vs halo XLA)
-    prefetch2 = (
-        jax.random.uniform(ks[1], (2, H, W, 3), jnp.float32),
-        jax.random.uniform(ks[2], (2, H, W), jnp.float32),
-        jax.random.uniform(ks[3], (2, H, W), jnp.float32) + 1.0,
-    )
-    # a NaN next to a shard boundary exercises halo'd fallback semantics
-    color2 = color2.at[0, 41, 7, 1].set(np.nan)
-    out1, st1 = svgf_denoise_pair(
-        color2, state2, svgf_map, normal, depth, grad, cfg, 0.1, 0.1,
-        prefetch2=prefetch2, wavelet_impl="pallas", interpret=True,
-    )
-    mesh = make_pixel_mesh(4)  # 40 rows/shard (>= PAD=32)
-    outS, stS = svgf_denoise_pair(
-        color2, state2, svgf_map, normal, depth, grad, cfg, 0.1, 0.1,
-        prefetch2=prefetch2, wavelet_impl="pallas", interpret=True,
-        mesh=mesh,
-    )
-    np.testing.assert_array_equal(np.asarray(out1), np.asarray(outS))
-    np.testing.assert_array_equal(
-        np.asarray(st1.color_history), np.asarray(stS.color_history)
-    )
-    np.testing.assert_array_equal(np.asarray(st1.miu1), np.asarray(stS.miu1))
-    np.testing.assert_array_equal(np.asarray(st1.miu2), np.asarray(stS.miu2))
-
-
-@needs_devices
-def test_sharded_wavefront_per_shard():
-    """The per-ray wavefront (incoherent_impl='wavefront') under the
-    sharded step: its schedule sweeps, per-round sorts, and assigned-chunk
-    kernel all run per-shard inside trace()'s shard_map — must match the
-    single-device render.  Needs a multi-chunk bf16 scene (the wavefront
-    gate); Cornell is single-chunk, so use the small colonnade."""
-    from low_precision_raytracer_tpu.models.procedural import sponza_like_scene
-
-    cfg = RenderConfig(width=64, height=64, precision="bf16", gi_on=True,
-                       incoherent_impl="wavefront")
-    host = sponza_like_scene(pillar_grid=2, sphere_subdiv=1, with_skybox=False)
-    scene = build_scene_arrays(host, cfg.prec, leaf_size=cfg.bvh_leaf_size)
-    frame = flatten_frame(host, cfg.prec, max_direct_lights=4, width=64, height=64)
-    cfg = resolve_cfg(scene, frame, cfg)
-    state = init_frame_state(cfg, len(frame.obj_layout))
-    key = jax.random.PRNGKey(3)
-    img1, _, _ = render_frame(scene, frame, state, cfg, key)
-    mesh = make_pixel_mesh(8)
-    img8, _, _ = render_frame_sharded(mesh, scene, frame, state, cfg, key)
-    np.testing.assert_allclose(
-        np.asarray(img1), np.asarray(img8), rtol=2e-3, atol=2e-3
     )

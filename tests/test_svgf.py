@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from low_precision_raytracer_tpu.config import SVGFConfig
-from low_precision_raytracer_tpu.ops import svgf as S
+from low_precision_raytracer.config import SVGFConfig
+from low_precision_raytracer.ops import svgf as S
 
 H = W = 64
 CFG = SVGFConfig()

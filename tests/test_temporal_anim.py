@@ -3,12 +3,12 @@ config 5 smoke: colonnade scene with skybox IBL."""
 
 import numpy as np
 
-from low_precision_raytracer_tpu.config import RenderConfig
-from low_precision_raytracer_tpu.models.procedural import (
+from low_precision_raytracer.config import RenderConfig
+from low_precision_raytracer.models.procedural import (
     animated_cornell_scene,
     sponza_like_scene,
 )
-from low_precision_raytracer_tpu.render.renderer import Renderer
+from low_precision_raytracer.render.renderer import Renderer
 
 
 def test_animated_scene_renders_and_reprojects():
@@ -57,7 +57,7 @@ def test_sponza_scene_tri_count_scales():
         big.meshes[0].n_triangles if False else 0 for _ in ()
     )
     total_inst = 0
-    from low_precision_raytracer_tpu.models.hierarchy import MeshObject
+    from low_precision_raytracer.models.hierarchy import MeshObject
 
     for node in big.root.walk():
         if isinstance(node, MeshObject):

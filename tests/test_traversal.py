@@ -1,20 +1,20 @@
 import numpy as np
 import pytest
 
-from low_precision_raytracer_tpu.config import get_precision
-from low_precision_raytracer_tpu.models.hierarchy import build_flat_scene
-from low_precision_raytracer_tpu.models.procedural import (
+from low_precision_raytracer.config import get_precision
+from low_precision_raytracer.models.hierarchy import build_flat_scene
+from low_precision_raytracer.models.procedural import (
     cornell_box_scene,
     icosphere_mesh,
     single_mesh_scene,
     single_triangle_scene,
 )
-from low_precision_raytracer_tpu.models.scene import (
+from low_precision_raytracer.models.scene import (
     build_scene_arrays,
     frame_input_from_flat,
 )
-from low_precision_raytracer_tpu.ops.camera import primary_ray_grid
-from low_precision_raytracer_tpu.ops.traversal import trace_rays
+from low_precision_raytracer.ops.camera import primary_ray_grid
+from low_precision_raytracer.ops.traversal import trace_rays
 
 from oracle import brute_force_trace
 

@@ -8,9 +8,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from low_precision_raytracer_tpu.config import DemoSettings, RenderConfig
-from low_precision_raytracer_tpu.gui.viewer import SceneExplorer, serve
-from low_precision_raytracer_tpu.models.procedural import cornell_box_scene
+from low_precision_raytracer.config import DemoSettings, RenderConfig
+from low_precision_raytracer.gui.viewer import SceneExplorer, serve
+from low_precision_raytracer.models.procedural import cornell_box_scene
 
 
 def _small_cfg():
@@ -46,7 +46,7 @@ def test_explorer_w_tracks_view_at_any_yaw():
     mirror: world step = R_y(-yaw) @ step, the same rotation the camera
     node carries (regression: the R_y(+yaw) form moved backward at
     yaw = 90 deg)."""
-    from low_precision_raytracer_tpu.math.hostmath import quaternion_to_matrix
+    from low_precision_raytracer.math.hostmath import quaternion_to_matrix
 
     ex = SceneExplorer(cornell_box_scene(), _small_cfg())
     # drag right 900 px (x_sensitivity 0.001/px -> yaw ~ 0.9 rad)
